@@ -13,7 +13,7 @@ import numpy as np
 
 from .format import constants as C
 from .format.varint import encode_varint
-from .kernels.decode_vm import decode_blocks_vm as decode_blocks
+from .kernels.decode import decode_blocks, decode_stream
 from .kernels.encode_v2 import encode_blocks_v2
 from .model.decode import CorruptError
 from .stream import framing
@@ -89,21 +89,19 @@ def compress(data: bytes | np.ndarray, profile: str = "dense") -> bytes:
     )
 
 
-_WINDOWED_BATCH = 64  # chunks staged per decode_stream_vm call (~4.6 MB comp)
+_WINDOWED_BATCH = 64  # chunks staged per decode_stream call (~4.6 MB comp)
 
 
 def _decompress_windowed(split) -> bytes:
     """Device decode of a NON-block-splittable stream: chunks cut at op
-    boundaries run through the sequential sliding-window kernel
-    (decode_vm2.decode_stream_vm), the device analog of the reference's
+    boundaries run through the sequential sliding-window decoder
+    (kernels/decode.decode_stream), the device analog of the reference's
     128 KiB source-window refill (snappy_decompression.c:154-161).
 
     Chunks are staged in bounded batches with the 64 KiB context tail
     carried between kernel calls (the kernel's ctx0 input), so a multi-GB
     unsplittable stream decodes incrementally instead of staging all its
-    padded chunks at once (ADVICE r3 #2)."""
-    from .kernels.decode_vm2 import decode_stream_vm
-
+    padded chunks at once."""
     chunks, out_lens, ctx_lens = split
     N = len(chunks)
     pieces = []
@@ -115,7 +113,7 @@ def _decompress_windowed(split) -> bytes:
         ctx0[:] = 0
         if tail:
             ctx0[C.MAX_BLOCK_SIZE - len(tail):] = np.frombuffer(tail, np.uint8)
-        out, ok = decode_stream_vm(
+        out, ok = decode_stream(
             padded,
             comp_lens,
             np.asarray(out_lens[k0:k1], np.int32),
@@ -180,14 +178,6 @@ def decompress(data: bytes | np.ndarray) -> bytes:
 
                 return decode_ops(ops, out_len).tobytes()
         padded, comp_lens = framing.pad_chunks(chunks)
-    if cpu.available:
-        # host-resident stream: the movement-only tape decoder (host C
-        # parses/validates/schedules, device executes pure movement;
-        # parsing-VM fallback on tape overflow is built into the wrapper —
-        # kernels/decode_tape.py)
-        from .kernels.decode_tape import decode_blocks_tape as _dec
-    else:
-        _dec = decode_blocks
     out_pieces = []
     for start, size, bucket in _batched(padded.shape[0]):
         pc = np.zeros((bucket, C.MAX_COMPRESSED_BLOCK_SIZE), dtype=np.uint8)
@@ -196,7 +186,7 @@ def decompress(data: bytes | np.ndarray) -> bytes:
         pc[:size] = padded[start : start + size]
         pl[:size] = comp_lens[start : start + size]
         ol[:size] = out_lens[start : start + size]
-        out, ok = _dec(pc, pl, ol)
+        out, ok = decode_blocks(pc, pl, ol)
         out, ok = np.asarray(out), np.asarray(ok)
         if not ok[:size].all():
             raise CorruptError(f"malformed block(s) {np.nonzero(~ok[:size])[0].tolist()}")

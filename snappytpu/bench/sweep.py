@@ -12,7 +12,7 @@ any backend/profile so new numbers are directly comparable, and adds:
     as a number (BASELINE configs 4/5 at whatever device count is visible).
 
 Run: python -m snappytpu.bench.sweep --backend device --profile dense \
-         --out Test_results_tpu
+         --out results
 """
 
 from __future__ import annotations
@@ -98,7 +98,7 @@ def _best_of(fn, reps):
 
 
 def run_sweep(backend: str = "cpu", profile: str = "dense", reps: int = 5,
-              out_dir: str = "Test_results_tpu", sizes=SIZES,
+              out_dir: str = "results", sizes=SIZES,
               real_file_mb: int = 0, mesh: bool = False,
               n_hosts: int = 1) -> list[Result]:
     os.makedirs(out_dir, exist_ok=True)
@@ -138,7 +138,7 @@ def main(argv=None):
     p.add_argument("--backend", default="cpu", choices=["device", "cpu", "model"])
     p.add_argument("--profile", default="dense", choices=["dense", "fast"])
     p.add_argument("--reps", type=int, default=5)
-    p.add_argument("--out", default="Test_results_tpu")
+    p.add_argument("--out", default="results")
     p.add_argument("--real-file-mb", type=int, default=0,
                    help="append a Silesia-stand-in point of this many MB")
     p.add_argument("--mesh", action="store_true",

@@ -63,6 +63,10 @@ def main(argv=None):
              "snappy_compression.c:210, at device batch granularity)",
     )
     args = p.parse_args(argv)
+    if args.backend == "device":
+        from .config import enable_compile_cache
+
+        enable_compile_cache()
 
     # getopt-style flags take priority; otherwise the first positional may be
     # a verb (compress/decompress/roundtrip)

@@ -11,6 +11,7 @@ collision-free, the fast profile just searches fewer gram tiers.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 from .format import constants as C
@@ -53,3 +54,25 @@ class CodecConfig:
 
 
 DEFAULT = CodecConfig()
+
+
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache and return its directory.
+
+    Where JAX_COMPILATION_CACHE_DIR is set, JAX already uses it and nothing
+    is set here.  Otherwise the cache lives at a fixed path inside the
+    checkout (.jax_cache, listed in .gitignore): the path is part of the
+    cache key, so it must not move between runs."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    import jax
+
+    path = os.path.join(_CHECKOUT, ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+    return path

@@ -71,8 +71,6 @@ def _load():
     lib.stpu_scan_ops.argtypes = [u8p, i64, i64, i64, i64p, i64p, i64]
     lib.stpu_compact.restype = i64
     lib.stpu_compact.argtypes = [u8p, i64, i32p, i64, u8p, i64]
-    lib.stpu_build_tape.restype = i64
-    lib.stpu_build_tape.argtypes = [u8p, i64, i64, i64, i64, i64, i32p, i64]
     lib.stpu_split.restype = i64
     lib.stpu_split.argtypes = [u8p, i64, i64p, i64, u8p, i64, i32p]
     _lib = lib
@@ -141,27 +139,6 @@ def compact(rows: np.ndarray, lens: np.ndarray) -> bytes:
     if w < 0:
         raise NativeError("compact overflow")
     return out[:w].tobytes()
-
-
-def build_tapes(comp_rows: np.ndarray, comp_lens: np.ndarray,
-                out_lens: np.ndarray, comp_off: int, out_base: int,
-                max_recs: int):
-    """Host movement-tape builder for the movement-only device decoder:
-    (B, stride) padded comp rows + per-block lens -> ((B, 2*max_recs) int32
-    tapes, (B,) int32 n_recs).  n_recs is -9 where the tape overflowed
-    (caller falls back to the parsing VM) and -10 where the stream is
-    malformed (same accept set as the VM)."""
-    comp_rows = np.ascontiguousarray(comp_rows, dtype=np.uint8)
-    B, stride = comp_rows.shape
-    tapes = np.zeros((B, 2 * max_recs), dtype=np.int32)
-    nrecs = np.empty(B, dtype=np.int32)
-    i32p = ctypes.POINTER(ctypes.c_int32)
-    for i in range(B):
-        nrecs[i] = _lib.stpu_build_tape(
-            _u8(comp_rows[i]), stride, int(comp_lens[i]), int(out_lens[i]),
-            comp_off, out_base, tapes[i].ctypes.data_as(i32p), max_recs,
-        )
-    return tapes, nrecs
 
 
 def split_rows(stream: np.ndarray, cuts: np.ndarray, stride: int):

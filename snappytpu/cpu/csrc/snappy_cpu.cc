@@ -2,7 +2,7 @@
 // stream compaction.
 //
 // Role in the framework (SURVEY.md §7): the host-side golden oracle and fast
-// fallback for the TPU codec — NOT a copy of the reference C code.  It is an
+// fallback for the device codec — NOT a copy of the reference C code.  It is an
 // independent implementation of the public Snappy block format (the same
 // format the reference implements in src/snappy_compression.c /
 // src/snappy_decompression.c), written for clarity + host speed:
@@ -330,136 +330,6 @@ int64_t stpu_scan_ops(const uint8_t* src, int64_t n, int64_t total_out,
     nb = 1;
   }
   return nb;
-}
-
-// Build a movement tape for the Pallas movement-only decoder
-// (kernels/decode_tape.py): parse + validate one block's op stream on the
-// host and emit the EXACT piece schedule the device VM would compute
-// (decode_vm2.py piece semantics: 504-byte funnel windows, same-distance
-// chain coalescing, dist-{1,2,4} pattern pieces, period-multiple doubling
-// for other self-overlaps), so the device kernel runs pure data movement
-// with zero on-device parsing.  Replaces the decode VM's scalar parse
-// chain (~94 ns/op of dependent-latency, PROFILE.md r4) with host C.
-//
-// Record: two int32 words.  w0 = src | pk2 << 18 | len << 20 (src < 2^18
-// image bytes, pk2 = pattern dist code 0/1/2/3->{none,1,2,4}, len <= 504);
-// w1 = dst image byte.  comp_off / out_base are the caller's unified-image
-// layout constants.
-//
-// Returns n_records >= 0, or -9 (tape capacity; caller falls back to the
-// parsing VM) or -10 (malformed stream: the same accept set as the VM —
-// differential-tested; caller flags the block bad).
-int64_t stpu_build_tape(const uint8_t* comp, int64_t stride, int64_t comp_len,
-                        int64_t out_len, int64_t comp_off, int64_t out_base,
-                        int32_t* tape, int64_t max_recs) {
-  constexpr int64_t kPieceMax = 504;
-  int64_t nrec = 0;
-  int64_t ip = 0, opc = 0;
-
-  // parse the op at ip with the output cursor at opc_eff; identical accept
-  // set to decode_vm2._block_loop.parse_at with ctx_len = 0
-  auto parse = [&](int64_t at, int64_t opc_eff, int64_t* hdr, int64_t* ln,
-                   int64_t* d) -> bool {  // returns bad
-    auto byte_at = [&](int64_t i) -> uint32_t {
-      return (i < stride) ? comp[i] : 0u;
-    };
-    uint32_t tag = byte_at(at);
-    uint32_t kind = tag & 3;
-    uint32_t code = tag >> 2;
-    bool bad = false;
-    if (kind == 0) {  // literal
-      int64_t extra = (code < 60) ? 0 : (code - 59);
-      *hdr = 1 + extra;
-      uint64_t len = code + 1;
-      if (extra > 0) {
-        len = 0;
-        for (int64_t i = 0; i < extra; ++i)
-          len |= static_cast<uint64_t>(byte_at(at + 1 + i)) << (8 * i);
-        if (extra == 4) {
-          bad |= (byte_at(at + 4) & 0xC0) != 0;  // match the VM's 30-bit cap
-          len &= 0x3FFFFFFF;
-        }
-        len += 1;
-      }
-      *ln = static_cast<int64_t>(len);
-      *d = 0;
-      bad |= (at + *hdr > comp_len) || (opc_eff + *ln > out_len);
-      bad |= (at + *hdr + *ln > comp_len);
-    } else {
-      if (kind == 1) {
-        *hdr = 2;
-        *ln = (code & 7) + 4;
-        *d = ((code >> 3) << 8) | byte_at(at + 1);
-      } else if (kind == 2) {
-        *hdr = 3;
-        *ln = code + 1;
-        *d = byte_at(at + 1) | (byte_at(at + 2) << 8);
-      } else {
-        *hdr = 5;
-        *ln = code + 1;
-        *d = byte_at(at + 1) | (byte_at(at + 2) << 8) | (byte_at(at + 3) << 16);
-        bad |= byte_at(at + 4) != 0;
-      }
-      bad |= (at + *hdr > comp_len) || (opc_eff + *ln > out_len);
-      bad |= (*d < 1) || (*d > opc_eff);
-    }
-    return bad;
-  };
-
-  auto emit = [&](int64_t s, int64_t dst, int64_t lp, int64_t patk) -> bool {
-    if (nrec >= max_recs) return false;
-    int32_t pk2 = (patk == 4) ? 3 : static_cast<int32_t>(patk);
-    tape[2 * nrec] = static_cast<int32_t>(s) | (pk2 << 18) |
-                     (static_cast<int32_t>(lp) << 20);
-    tape[2 * nrec + 1] = static_cast<int32_t>(dst);
-    ++nrec;
-    return true;
-  };
-
-  while (opc < out_len && ip < comp_len) {
-    int64_t hdr, ln, d;
-    if (parse(ip, opc, &hdr, &ln, &d)) return -10;
-    int64_t rem, src = 0, dist = d, done = 0;
-    if (d == 0) {
-      src = ip + hdr + comp_off;
-      rem = ln;
-      ip += hdr + ln;
-    } else {
-      // same-distance chain coalescing (decode_vm2.py:249-265): absorb the
-      // 60/64-chunk tails of long matches and run streams into one move
-      int64_t ip_a = ip + hdr, rem_a = ln;
-      bool chainable = (d == 1) || (d == 2) || (d == 4) || (ln == kMaxCopyLen);
-      while (chainable && ip_a < comp_len) {
-        int64_t h2, l2, d2;
-        bool bad2 = parse(ip_a, opc + rem_a, &h2, &l2, &d2);
-        if (bad2 || d2 != d) break;
-        ip_a += h2;
-        rem_a += l2;
-      }
-      rem = rem_a;
-      ip = ip_a;
-    }
-    while (rem > 0) {
-      int64_t lp = rem < kPieceMax ? rem : kPieceMax;
-      bool okr;
-      if (dist == 0) {
-        okr = emit(src, out_base + opc, lp, 0);
-        src += lp;
-      } else if (dist == 1 || dist == 2 || dist == 4) {
-        okr = emit(0, out_base + opc, lp, dist);
-      } else {
-        int64_t dd = done - done % dist + dist;
-        if (lp > dd) lp = dd;
-        okr = emit(out_base + opc - dd, out_base + opc, lp, 0);
-        done += lp;
-      }
-      if (!okr) return -9;
-      opc += lp;
-      rem -= lp;
-    }
-  }
-  if (ip != comp_len || opc != out_len) return -10;
-  return nrec;
 }
 
 // Gather B variable-length rows (row i = comp[i*stride .. i*stride+lens[i]))

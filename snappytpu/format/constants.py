@@ -46,8 +46,8 @@ COPY2_MAX_OFFSET = 1 << 16  # 65536: offset must fit in 16 bits
 # --- block structure ----------------------------------------------------------
 # The unit of independent (parallel) work.  Matches never cross a block
 # boundary and all per-block state resets between blocks
-# (reference: snappy_compression.c:9, :419-425), which is the property the TPU
-# build exploits for data parallelism.
+# (reference: snappy_compression.c:9, :419-425), which is the property the
+# device codec exploits for data parallelism.
 MAX_BLOCK_SIZE = 65536
 
 # Worst-case compressed size of one block as produced by *our* encoders:

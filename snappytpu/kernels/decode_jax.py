@@ -40,9 +40,12 @@ _ROUNDS = 17  # 2^17 > PAD_OUT and > BS
 def _op_table(comp_i32: jnp.ndarray):
     """Vectorized speculative op parse at every byte offset.
 
-    Returns (jump, out_len, hdr_len, kind, dist): what the op starting at p
-    would be.  Lengths are clamped so malformed bytes stay deterministic; a
-    bad stream simply fails the landing check."""
+    Returns (jump, out_len, hdr_len, kind, dist, bad): what the op starting
+    at p would be.  Lengths are clamped so malformed bytes stay
+    deterministic; a bad stream simply fails the landing check.  `bad` marks
+    ops malformed wherever they sit: a 4-byte literal length >= 2^30 or a
+    COPY4 distance >= 2^24, both beyond any block (the model and native
+    decoders reject them too)."""
     pos = lax.broadcasted_iota(jnp.int32, (PAD_OUT, 1), 0).reshape(PAD_OUT)
 
     def at(off):
@@ -72,7 +75,7 @@ def _op_table(comp_i32: jnp.ndarray):
     c2_len = code + 1
     c2_dist = b1 | (b2 << 8)
     c4_len = code + 1
-    c4_dist = jnp.clip(b1 | (b2 << 8) | (b3 << 16) | ((b4 & 0x3F) << 24), 0, 1 << 28)
+    c4_dist = b1 | (b2 << 8) | (b3 << 16)
 
     is_lit = kind == C.TAG_LITERAL
     hdr = jnp.where(
@@ -86,8 +89,10 @@ def _op_table(comp_i32: jnp.ndarray):
     dist = jnp.where(
         kind == C.TAG_COPY1, c1_dist, jnp.where(kind == C.TAG_COPY2, c2_dist, c4_dist)
     )
+    bad = jnp.where(is_lit, (extra == 4) & ((b4 & 0xC0) != 0),
+                    (kind == C.TAG_COPY4) & (b4 != 0))
     jump = pos + hdr + jnp.where(is_lit, lit_len, 0)
-    return jump, out_len, hdr, kind, dist
+    return jump, out_len, hdr, kind, dist, bad
 
 
 def _op_starts(jump: jnp.ndarray, comp_len: jnp.ndarray):
@@ -116,14 +121,17 @@ def _op_starts(jump: jnp.ndarray, comp_len: jnp.ndarray):
     return starts, landed
 
 
-def decode_block_device(comp_u8: jnp.ndarray, comp_len: jnp.ndarray, out_len: jnp.ndarray):
+def decode_block_device(comp_u8: jnp.ndarray, comp_len: jnp.ndarray, out_len: jnp.ndarray,
+                        ctx_u8: jnp.ndarray | None = None, ctx_len=0):
     """Decode one zero-padded (PAD_OUT,) uint8 op stream to (BS,) uint8.
 
-    Returns (out_bytes, ok): ok is False for malformed input (bad landing,
-    output-length mismatch, or out-of-range copy offset), in which case the
-    bytes are unspecified."""
+    With a context, copies may also reach ctx_len bytes back into ctx_u8
+    (BS,), the output that precedes this chunk: the windowed decoder's
+    sliding window.  Returns (out_bytes, ok): ok is False for malformed
+    input (bad landing, output-length mismatch, malformed op, or
+    out-of-range copy offset), in which case the bytes are unspecified."""
     comp_i32 = comp_u8.astype(jnp.int32)
-    jump, op_out, hdr, kind, dist = _op_table(comp_i32)
+    jump, op_out, hdr, kind, dist, bad_op = _op_table(comp_i32)
     starts, landed = _op_starts(jump, comp_len)
 
     osize = jnp.where(starts, op_out, 0)
@@ -146,17 +154,27 @@ def decode_block_device(comp_u8: jnp.ndarray, comp_len: jnp.ndarray, out_len: jn
     is_lit_byte = opk == C.TAG_LITERAL
     # literal source in the compressed stream
     lit_src = op_at + oph + (q - opo)
-    ptr = jnp.where(is_lit_byte, q, q - opd)
     in_out = q < out_len
     # offset 0 would make a copy byte its own chain root (self-loop) — corrupt
-    bad_ref = jnp.any((~is_lit_byte) & ((ptr < 0) | (opd == 0)) & in_out)
-    ptr = jnp.clip(ptr, 0, BS - 1)
-    ptr = lax.fori_loop(0, _ROUNDS, lambda _, p: p[p], ptr)
-    src = jnp.clip(lit_src[ptr], 0, PAD_OUT - 1)
-    out = comp_u8[src]
-    out = jnp.where(q < out_len, out, 0).astype(jnp.uint8)
+    bad_ref = jnp.any((~is_lit_byte) & ((q - opd < -ctx_len) | (opd == 0)) & in_out)
+    bad_ref = bad_ref | jnp.any(starts & bad_op)
+    if ctx_u8 is None:
+        ptr = jnp.clip(jnp.where(is_lit_byte, q, q - opd), 0, BS - 1)
+        ptr = lax.fori_loop(0, _ROUNDS, lambda _, p: p[p], ptr)
+        out = comp_u8[jnp.clip(lit_src[ptr], 0, PAD_OUT - 1)]
+    else:
+        # index space [0, BS) is the context (every byte its own root),
+        # [BS, 2 BS) this chunk's output
+        ptr = jnp.concatenate([q, jnp.clip(jnp.where(is_lit_byte, q, q - opd) + BS, 0, 2 * BS - 1)])
+        ptr = lax.fori_loop(0, _ROUNDS + 1, lambda _, p: p[p], ptr)[BS:]
+        from_comp = comp_u8[jnp.clip(lit_src[jnp.maximum(ptr - BS, 0)], 0, PAD_OUT - 1)]
+        out = jnp.where(ptr < BS, ctx_u8[jnp.minimum(ptr, BS - 1)], from_comp)
+    out = jnp.where(in_out, out, 0).astype(jnp.uint8)
 
-    ok = landed & (total_out == out_len) & ~bad_ref & (out_len >= 0)
+    # lengths outside the row are rejected, never clamped into it
+    sane = (comp_len >= 0) & (comp_len <= PAD_OUT) & (out_len >= 0) & (out_len <= BS)
+    sane = sane & (ctx_len >= 0) & (ctx_len <= BS)
+    ok = landed & (total_out == out_len) & ~bad_ref & sane
     return out, ok
 
 
@@ -165,3 +183,19 @@ def decode_blocks(comp_u8: jnp.ndarray, comp_lens: jnp.ndarray, out_lens: jnp.nd
     """Batched block decode: (B, PAD_OUT) uint8 + (B,) int32 x2 ->
     ((B, BS) uint8, (B,) bool)."""
     return jax.vmap(decode_block_device)(comp_u8, comp_lens, out_lens)
+
+
+@jax.jit
+def decode_stream(comp_u8, comp_lens, out_lens, ctx_lens, ctx0_u8):
+    """Windowed decode of N op chunks in order, each with the previous 64 KiB
+    of output as copy context (same contract as decode.decode_stream)."""
+
+    def step(ctx, chunk):
+        c, cl, ol, xl = chunk
+        out, ok = decode_block_device(c, cl, ol, ctx, xl)
+        # slide the window: the last BS bytes of (context || this output)
+        ctx = lax.dynamic_slice(jnp.concatenate([ctx, out]), (ol,), (BS,))
+        return ctx, (out, ok)
+
+    _, (out, ok) = lax.scan(step, ctx0_u8, (comp_u8, comp_lens, out_lens, ctx_lens))
+    return out, ok

@@ -1,4 +1,4 @@
-"""Device block encoder — vectorized JAX, the TPU-native LZ77 pipeline.
+"""Device block encoder — vectorized JAX, the data-parallel LZ77 pipeline.
 
 Bit-for-bit the same algorithm as the numpy model (snappytpu/model/encode.py);
 every phase is data-parallel over positions so the whole block compiles to
@@ -93,10 +93,9 @@ def _lcp(words: jnp.ndarray, cand: jnp.ndarray, pos: jnp.ndarray, n: jnp.ndarray
     """Exact common-prefix length vs candidate, capped at MAX_COPY_LEN and the
     block end.  Stride-4 big-endian word compares + byte refinement.
 
-    The word loop is a fori_loop on purpose: XLA:TPU fuses unrolled chains of
-    data-dependent gathers into catastrophically slow mega-fusions (~1 ms per
-    stage measured on v5e); loop-carried rounds compile to separate fast
-    gather kernels (~2.5 us each)."""
+    The word loop is a fori_loop on purpose: loop-carried rounds compile to
+    separate gather kernels instead of one fusion of unrolled chains of
+    data-dependent gathers."""
     valid = cand >= 0
     c = jnp.maximum(cand, 0)
 

@@ -1,12 +1,10 @@
-"""Device block encoder v2 — sort/scan-native, fitted to measured TPU costs.
+"""Device block encoder v2 — sort/scan-native.
 
 The v1 encoder (encode_jax.py) is algorithmically parallel but leans on
-random gathers/scatters, which on the target TPU run at ~10 ns/element
-(scalar-unit speed) — measured 11 s per 8 MiB batch.  v2 is built only from
-the primitives that are actually fast on this hardware (measured per
-128-block batch): `lax.sort` (~4-20 ms), cumulative/associative scans
-(<1 ms), and elementwise ops — plus exactly ONE bounded gather round for
-run re-gluing.
+unbounded random gathers/scatters.  v2 is built from sorts
+(`lax.sort`), cumulative scans and elementwise ops, plus two bounded
+gather rounds for run re-gluing and one collision-free scatter that
+assembles the output row.  Its stage costs on the GPU are not measured yet.
 
 Pipeline (all per-block, batched over rows, fully inside one jit):
 
@@ -40,12 +38,12 @@ Pipeline (all per-block, batched over rows, fully inside one jit):
                       ops with the reference's 60/64 remainder rule
                       (snappy_compression.c:153-165); every emitted byte
                       becomes a (dest, value) slot, compacted by short-row
-                      per-section sorts + a Pallas funnel concat — no
-                      unbounded scatters.
+                      per-section sorts + one collision-free scatter that
+                      concatenates the sections (concat_rows).
 
-Self-overlapping copies (dist < len) are emitted as-is; the sequential
-decode VM (decode_vm.py) replicates them natively, so no ACEAPEX-style
-offset flattening is needed.
+Self-overlapping copies (dist < len) are emitted as-is; the decoders
+(decode.py) replicate them natively, so no ACEAPEX-style offset
+flattening is needed.
 
 Wire format: byte-identical Snappy element stream (SURVEY.md §2 format
 contract).  Op starts land at arbitrary byte offsets (lead stretching and
@@ -62,7 +60,6 @@ import jax.numpy as jnp
 from jax import lax
 
 from ..format import constants as C
-from .concat import concat_rows_words
 
 BS = C.MAX_BLOCK_SIZE
 PAD_OUT = C.MAX_COMPRESSED_BLOCK_SIZE
@@ -213,7 +210,7 @@ def _find_matches(blocks_u8: jnp.ndarray, n: jnp.ndarray, dense: bool = True,
     (tests/test_reference_compat.py, test_encode_v2.py) hold for the
     defaults alone.  They are real function arguments (not env reads) so
     every variant traces separately and the production jit cache cannot
-    serve a non-default trace (ADVICE r3 #1).
+    serve a non-default trace.
     """
     B = blocks_u8.shape[0]
     pos = _pos(B, BS)
@@ -247,10 +244,8 @@ def _find_matches(blocks_u8: jnp.ndarray, n: jnp.ndarray, dense: bool = True,
     # words (nearest occurrences are short-match candidates — the deep-LCP
     # work is tier B's job).  lax.sort is stable, so within a (flag, w0)
     # group slots are already position-ordered — pos rides as an operand,
-    # not a key (sort cost scales with KEY count on this target: a 9-key
-    # sort measured ~5x a 2-key sort of the same operands).
-    # positions ride sorts at half width (u16) by default: measured equal
-    # or better than int32 operands on both profiles (PROFILE.md r3 A/B)
+    # not a key (sort cost scales with the key count).
+    # positions ride sorts at half width (u16) by default
     pos_op = pos.astype(jnp.uint16) if pos16 else pos
     sortedA = lax.sort((w0p, pos_op) + kws[1:a_words], dimension=1, num_keys=1)
     apos = sortedA[1].astype(jnp.int32)
@@ -322,8 +317,7 @@ def _find_matches(blocks_u8: jnp.ndarray, n: jnp.ndarray, dense: bool = True,
 
 def _prefix_winner(key, payloads):
     """Prefix-argmax over each row with payload recovery, built ONLY from
-    native cummax scans (associative tuple scans measured ~25x slower on
-    this target).
+    native cummax scans (associative tuple scans are far slower).
 
     key must encode the full preference order numerically (pack tie-breaks
     into low bits); invalid positions use key -1.  The prefix winner at p is
@@ -478,20 +472,13 @@ def _elect(tiers, inh, n):
 
 
 def _reglue(blocks_u8, is_copy, ad, lead, tail, n):
-    """Two bounded gather rounds (~17 ms each — the only gathers in the
-    encoder, and its single largest cost at 30% of the fast pipeline,
-    tools/enc_ablate.py r5): adopt a neighbor's distance where this
+    """Two bounded gather rounds: adopt a neighbor's distance where this
     anchor's 4 bytes verifiably also match at it (left-neighbor round
     extends runs rightward, right-neighbor round leftward).  Stitches the
     vote-boundary disagreements that fragment runs.  Glued anchors carry
     no lead/tail slack (only their own 4 bytes are verified at the
-    adopted distance).
-
-    Closed r5 alternatives, both wire-identical and measured SLOWER on
-    the real chip: (a) a value/query sort-join gather substitute (98k-wide
-    5-operand sort + packed fills + back-sort) ran +15 ms vs the gathers;
-    (b) dropping the second round saves 17 ms but costs +3.6% compressed
-    size (text +7%) — far beyond the contract margins.  The gathers stay.
+    adopted distance).  Dropping the second round costs +3.6% compressed
+    size (text +7%), far beyond the contract margins.
     """
     B = is_copy.shape[0]
     a_pos = _pos(B, NA) * G
@@ -521,9 +508,8 @@ def _reglue(blocks_u8, is_copy, ad, lead, tail, n):
     return is_copy, ad, lead, tail
 
 
-# Emission sections per block: 64 measured fastest on both profiles
-# (tools/enc_profile.py r4: fast 129.3 ms vs 132.4 at 32; dense 207.6 vs
-# 210.9 — shorter compaction-sort rows win until concat overhead bites).
+# Emission sections per block (shorter compaction-sort rows are cheaper
+# until the concat of many sections costs more; not tuned on the GPU).
 # Wire bytes are nsec-INVARIANT (section dests are disjoint contiguous
 # ranges, so per-section sorts + concat equal one global sort; verified
 # byte-identical across 32/64 on mixed/runs/text, both profiles).
@@ -532,7 +518,7 @@ _NSEC = 64
 
 def _section_capacity(sp: int) -> int:
     """Per-section slot capacity: worst-case emitted bytes attributable to
-    one section's sp positions, padded to full 512-byte lane rows.
+    one section's sp positions, padded to a multiple of 512 bytes.
 
     The sustained emission density is bounded by ~1.015 bytes/position:
     covered intervals always contain a full 4-aligned anchor tile, so
@@ -560,8 +546,8 @@ def _emit(blocks_u8, is_copy, ad, lead, tail, n, nsec=None, seccap=None):
     bytes, then split into Snappy ops with the reference's 60/64 rule for
     awkward remainders (snappy_compression.c:153-165).  Every emitted byte
     becomes a (dest, value) slot; short-row per-section sorts compact the
-    slots and a Pallas funnel concat assembles the final row —
-    no unbounded scatters or gathers anywhere."""
+    slots and one collision-free scatter (concat_rows)
+    assembles the final row."""
     nsec = _NSEC if nsec is None else nsec
     sp = BS // nsec
     # seccap is overridable ONLY so tests can prove the overflow guard
@@ -611,8 +597,7 @@ def _emit(blocks_u8, is_copy, ad, lead, tail, n, nsec=None, seccap=None):
     # tile).  The two never overlap: lead stretching is capped at the
     # previous run's covered end.  Both "latest <=" and "first >" fields
     # ride anchor-resolution packed cummax fills and a free x4 broadcast —
-    # replacing the former byte-level scatter fills (~12 ns/element on this
-    # target) with ~0.1 ms anchor scans.
+    # instead of byte-level scatter fills.
     ivs = jnp.where(run_start, a_pos - lead_fin, 0)               # interval start byte
     # interval end: tail of THIS run — propagate run_end info back to start
     ive_p = rev(_prop_pack(rev(jnp.where(run_end, a_pos + G + tail_fin, 0)), rev(run_end), 17))
@@ -745,20 +730,17 @@ def _emit(blocks_u8, is_copy, ad, lead, tail, n, nsec=None, seccap=None):
     # Section compaction: slot dests are globally monotone in source
     # position, so the nsec sections own disjoint, ordered dest ranges.
     # Each section's 2*sp slots compact with an independent short-row sort
-    # (~2.7x cheaper per element than a full-width sort on this target) and
-    # the variable-length section heads are assembled in one pass by the
-    # Pallas funnel-concat kernel — no second sort, no scatters.
+    # (cheaper per element than a full-width sort) and the variable-length
+    # section heads are assembled by one collision-free scatter
+    # (concat_rows) — no second sort.
     slots = jnp.stack(
         [v0.reshape(B, nsec, sp), v1.reshape(B, nsec, sp)], axis=3
     ).reshape(B * nsec, 2 * sp)
     (ss,) = lax.sort((slots,), dimension=1, num_keys=1)
     # valid pair indices are 0..ceil(sec_cnt/2)-1 contiguous (one slot per
     # pair), so sorted rank == pair index.  Two consecutive pair slots make
-    # one little-endian output word — built with shifts on the 2D sorted
-    # array (NO stack/interleave: a (.., n, 2) intermediate pads its minor
-    # dim to 128 lanes on this target, a 64x-inflated HBM temporary that
-    # OOMed at B=512 and taxed every batch), feeding the words-native
-    # funnel concat directly.
+    # one little-endian output word, built with shifts on the 2D sorted
+    # array, which concat_rows takes as it is.
     paircap = (seccap + 1) // 2 + ((seccap + 1) // 2 & 1)  # even # of pairs
     sp2 = ss[:, :paircap]
     e, o = sp2[:, 0::2], sp2[:, 1::2]
@@ -774,11 +756,34 @@ def _emit(blocks_u8, is_copy, ad, lead, tail, n, nsec=None, seccap=None):
     # _section_capacity and cannot be hit by legal emission geometry.
     overflow = jnp.any(sec_cnt > seccap, axis=1)
     total = jnp.where(overflow, jnp.int32(-1), total)
-    out = concat_rows_words(
+    out = concat_rows(
         sec_words.reshape(B, nsec, sec_words.shape[1]),
         jnp.minimum(sec_cnt, seccap), PAD_OUT,
     )
     return out, total
+
+
+def concat_rows(words: jnp.ndarray, lens: jnp.ndarray, out_cap: int) -> jnp.ndarray:
+    """(B, S, W) int32 little-endian words + (B, S) int32 byte lens ->
+    (B, out_cap) uint8, where row b is the first lens[b, s] bytes of each of
+    its S pieces in order, zero-padded.  Requires lens[b, s] <= 4 W and
+    sum(lens[b]) <= out_cap.
+
+    One scatter: byte j of piece s goes to the piece's start (a cumsum of
+    the lengths) plus j.  Bytes past a piece's length get distinct targets
+    past the row and are dropped, so every target is unique and the
+    scatter needs no atomics."""
+    B, S, W = words.shape
+    cap = 4 * W
+    src = lax.bitcast_convert_type(words, jnp.uint8).reshape(B, S * cap)
+    lens = jnp.asarray(lens, jnp.int32)
+    starts = jnp.cumsum(lens, axis=1) - lens
+    j = jnp.arange(cap, dtype=jnp.int32)
+    past = out_cap + jnp.arange(S * cap, dtype=jnp.int32).reshape(S, cap)
+    dest = jnp.where(j < lens[:, :, None], starts[:, :, None] + j, past)
+    rows = jnp.arange(B, dtype=jnp.int32)[:, None]
+    return jnp.zeros((B, out_cap), jnp.uint8).at[rows, dest.reshape(B, S * cap)].set(
+        src, mode="drop", unique_indices=True)
 
 
 def encode_block_core(blocks_u8: jnp.ndarray, n: jnp.ndarray, dense: bool = True,

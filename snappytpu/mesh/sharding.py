@@ -1,4 +1,4 @@
-"""Mesh-parallel codec: data-parallel block sharding over a TPU mesh.
+"""Mesh-parallel codec: data-parallel block sharding over a device mesh.
 
 The reference has no parallelism at all (single thread, SURVEY.md §2); its
 64 KiB blocks share no state, which is exactly the property exploited here:
@@ -6,8 +6,9 @@ blocks are the data-parallel axis, sharded over every chip with `shard_map`,
 and compressed outputs come back as fixed-size padded buffers + length
 vectors gathered in original block order (SURVEY.md §5.8).  No collective is
 needed inside the codec itself — XLA inserts the (all-)gather implied by the
-output sharding; ICI carries it within a slice, DCN across hosts when
-`jax.distributed` is initialized.
+output sharding; NVLink carries it between the cards of a host, the network
+across hosts when `jax.distributed` is initialized.  The mesh is 1-D: every
+card reaches every other at the same rate, so only the algorithm shapes it.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..format import constants as C
-from ..kernels.decode_vm import decode_blocks_vm as decode_blocks
+from ..kernels.decode import decode_blocks
 from ..kernels.encode_v2 import encode_blocks_v2 as encode_blocks
 
 AXIS = "blocks"
@@ -41,9 +42,6 @@ def sharded_encode(mesh: Mesh, dense: bool = True):
             mesh=mesh,
             in_specs=(P(AXIS, None), P(AXIS)),
             out_specs=(P(AXIS, None), P(AXIS)),
-            # the emission concat is a pallas_call; its outputs carry no
-            # varying-manifest metadata yet (same as the decode VM below)
-            check_vma=False,
         )
     )
 
@@ -57,7 +55,9 @@ def sharded_decode(mesh: Mesh):
             mesh=mesh,
             in_specs=(P(AXIS, None), P(AXIS), P(AXIS)),
             out_specs=(P(AXIS, None), P(AXIS)),
-            # pallas_call outputs carry no varying-manifest metadata yet
+            # the CUDA decoder is an FFI call, whose outputs carry no
+            # varying-axes metadata, so the per-platform branches of
+            # decode_blocks only type-check with the check off
             check_vma=False,
         )
     )
@@ -98,7 +98,7 @@ def encode_mesh(mesh: Mesh, blocks: np.ndarray, lens: np.ndarray,
     comp, totals = _fetch(comp)[:B], _fetch(totals)[:B]
     if (totals < 0).any():
         # Same no-silent-truncation contract as api.encode_array_pieces: a
-        # negative total is the encoder's in-jit capacity poison (ADVICE r4 #2).
+        # negative total is the encoder's in-jit capacity poison.
         bad = np.nonzero(totals < 0)[0]
         raise ValueError(
             f"block(s) {bad.tolist()} exceeded the emission capacity bound; "

@@ -1,8 +1,8 @@
-"""Numpy model encoder — the executable specification of the TPU encoder.
+"""Numpy model encoder — the executable specification of the v1 device encoder.
 
 This is not a port of the reference C encoder; it is the *spec* for the
-TPU-native algorithm, written in numpy so every intermediate array can be
-diffed against the JAX/Pallas kernels:
+data-parallel algorithm, written in numpy so every intermediate array can be
+diffed against the JAX kernels:
 
   phase 1  grams:      the 4/8/16-byte grams starting at every position
   phase 2  candidates: for each gram tier, the nearest (and for 4-grams also

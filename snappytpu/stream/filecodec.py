@@ -67,7 +67,7 @@ def decompress_file(src: str | os.PathLike, dst: str | os.PathLike,
     output size.  Streams whose ops straddle 64 KiB output boundaries (not
     produced by block encoders) fall back to the in-memory path."""
     from .. import api, cpu
-    from ..kernels.decode_tape import decode_blocks_tape
+    from ..kernels.decode import decode_blocks
 
     m = np.memmap(src, dtype=np.uint8, mode="r")
     out_len, start = framing.read_preamble(np.asarray(m[:32].copy()))
@@ -99,7 +99,7 @@ def decompress_file(src: str | os.PathLike, dst: str | os.PathLike,
         # A valid stream (e.g. all-1-byte-literal encodings) can carry more
         # than MAX_COMPRESSED_BLOCK_SIZE compressed bytes per 64 KiB block;
         # split_rows would reject it, but api.decompress's windowed path
-        # handles it — route there instead of erroring (ADVICE r4 #1).
+        # handles it — route there instead of erroring.
         data = api.decompress(np.asarray(m))
         with open(dst, "wb") as w:
             w.write(data)
@@ -124,10 +124,8 @@ def decompress_file(src: str | os.PathLike, dst: str | os.PathLike,
                 pc[:size] = rows[b0:b1]
                 pl[:size] = comp_lens[b0:b1]
                 ol[:size] = win_lens[b0:b1]
-                # host-resident stream -> the movement-only tape decoder
-                # (host parses/validates, device moves; parsing-VM fallback
-                # on tape overflow is built into the wrapper)
-                out, ok = decode_blocks_tape(pc, pl, ol)
+                out, ok = decode_blocks(pc, pl, ol)
+                out, ok = np.asarray(out), np.asarray(ok)
                 if not ok[:size].all():
                     raise CorruptError(
                         f"malformed block(s) "

@@ -18,13 +18,14 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = (
     os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=4"
 ).strip()
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache-snappytpu")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1.0")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
+
+from snappytpu.config import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 coordinator, num_procs, proc_id, outdir = (
     sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]

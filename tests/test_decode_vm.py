@@ -1,7 +1,6 @@
-"""Pallas decode VM: correctness on our streams, reference streams, and
-malformed input.  Runs in Pallas interpret mode on the CPU test mesh; the
-same code compiles for TPU (probed layouts: int32 lanes, SMEM parse,
-row-granular VMEM RMW).
+"""Block decoder (kernels/decode.decode_blocks): correctness on our
+streams, reference streams, and malformed input.  On the CPU this runs the
+plain-JAX decoder; on a GPU the same tests run the CUDA kernel.
 """
 
 import subprocess
@@ -11,7 +10,7 @@ import pytest
 
 from snappytpu.bench import corpus
 from snappytpu.format.varint import decode_varint
-from snappytpu.kernels.decode_vm import decode_blocks_vm
+from snappytpu.kernels.decode import decode_blocks
 from snappytpu.kernels.encode_v2 import encode_blocks_v2
 from snappytpu.stream import framing
 
@@ -22,7 +21,7 @@ CASES["mixed100k"] = corpus.mixed(100_000, seed=7)
 def _vm_decode_stream(ops: np.ndarray, out_len: int) -> bytes:
     chunks, out_lens = framing.split_ops_stream(ops, out_len)
     padded, comp_lens = framing.pad_chunks(chunks)
-    out, ok = decode_blocks_vm(padded, comp_lens, np.array(out_lens, np.int32))
+    out, ok = decode_blocks(padded, comp_lens, np.array(out_lens, np.int32))
     out, ok = np.asarray(out), np.asarray(ok)
     assert ok.all(), f"VM flagged corrupt blocks: {np.nonzero(~ok)[0]}"
     return b"".join(out[i, :out_lens[i]].tobytes() for i in range(len(out_lens)))
@@ -37,7 +36,7 @@ def test_vm_roundtrip_own_streams(name):
     blocks, lens = framing.pack_blocks(arr)
     comp, totals = encode_blocks_v2(blocks, lens)
     comp, totals = np.asarray(comp), np.asarray(totals)
-    out, ok = decode_blocks_vm(comp, totals, lens)
+    out, ok = decode_blocks(comp, totals, lens)
     out, ok = np.asarray(out), np.asarray(ok)
     assert ok.all()
     rec = b"".join(out[i, : lens[i]].tobytes() for i in range(len(lens)))
@@ -69,15 +68,15 @@ def test_vm_flags_corrupt_streams():
     # forward reference: copy offset beyond the write cursor
     bad = comp.copy()
     bad[0, 0] = (60 << 2) | 2  # COPY2 len 61 at output position 0
-    out, ok = decode_blocks_vm(bad, totals, lens)
+    out, ok = decode_blocks(bad, totals, lens)
     assert not np.asarray(ok)[0]
 
     # truncated stream
-    out, ok = decode_blocks_vm(comp, np.maximum(totals - 5, 1), lens)
+    out, ok = decode_blocks(comp, np.maximum(totals - 5, 1), lens)
     assert not np.asarray(ok)[0]
 
     # declared output too long
-    out, ok = decode_blocks_vm(comp, totals, lens + 7)
+    out, ok = decode_blocks(comp, totals, lens + 7)
     assert not np.asarray(ok)[0]
 
 
@@ -89,39 +88,24 @@ def test_vm_overlap_replication():
         arr = np.frombuffer(data, np.uint8)
         blocks, lens = framing.pack_blocks(arr)
         comp, totals = encode_blocks_v2(blocks, lens)
-        out, ok = decode_blocks_vm(np.asarray(comp), np.asarray(totals), lens)
+        out, ok = decode_blocks(np.asarray(comp), np.asarray(totals), lens)
         assert np.asarray(ok).all()
         assert np.asarray(out)[0, : len(data)].tobytes() == data
 
 
-@pytest.mark.parametrize("kernel", ["vm2", "vm4"])
-def test_alternate_vms_match_production(kernel):
-    """The kept A/B kernels (v2 unified-image, v4 pipelined production)
-    must agree bit-for-bit and flag-for-flag on device-encoder streams —
-    the suite-level guarantee that the retained kernel generations stay
-    interchangeable.  (v1 is the dispatch host; v3's interleave experiment
-    was retired in r5 — the tape-kernel probes re-established its
-    conclusion at the hardware level, PROFILE.md r5.)"""
-    from snappytpu.kernels.decode_vm2 import decode_blocks_vm2
-    from snappytpu.kernels.decode_vm4 import decode_blocks_vm4
-
-    fns = {
-        "vm2": decode_blocks_vm2,
-        "vm4": decode_blocks_vm4,
-    }
-    data = CASES["mixed100k"]
-    arr = np.frombuffer(data, np.uint8)
-    blocks, lens = framing.pack_blocks(arr)
-    comp, totals = encode_blocks_v2(blocks, lens)
-    comp, totals = np.asarray(comp), np.asarray(totals)
-    ref_out, ref_ok = map(np.asarray, decode_blocks_vm(comp, totals, lens))
-    out, ok = map(np.asarray, fns[kernel](comp, totals, lens))
-    assert np.array_equal(ok, ref_ok) and ref_ok.all()
-    assert np.array_equal(out, ref_out)
-
-    # and on a malformed stream: identical verdicts
-    bad = comp.copy()
-    bad[0, 3] ^= 0xFF
-    r2 = np.asarray(decode_blocks_vm(bad, totals, lens)[1])
-    r1 = np.asarray(fns[kernel](bad, totals, lens)[1])
-    assert np.array_equal(r1, r2)
+@pytest.mark.parametrize("field", ["comp_len", "out_len"])
+def test_decoder_rejects_lengths_outside_the_row(field):
+    """A comp_len past the padded row or an out_len past 64 KiB is malformed
+    input: the block is not ok, whatever the row holds (both backends)."""
+    data = CASES["alice_like_text"][:65536]
+    blocks, lens = framing.pack_blocks(np.frombuffer(data, np.uint8))
+    comp, totals = map(np.asarray, encode_blocks_v2(blocks, lens))
+    ok = np.asarray(decode_blocks(comp, totals, lens)[1])
+    assert ok.all()
+    comp_lens, out_lens = totals.copy(), np.asarray(lens).copy()
+    if field == "comp_len":
+        comp_lens[0] = comp.shape[1] + 5
+    else:
+        out_lens[0] = 65536 + 5
+    ok = np.asarray(decode_blocks(comp, comp_lens, out_lens)[1])
+    assert not ok[0]

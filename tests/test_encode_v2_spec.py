@@ -15,15 +15,26 @@ from snappytpu.kernels import encode_v2 as E
 from snappytpu.model import encode_v2_spec as S
 from snappytpu.model.decode import decode_ops
 
+def _csv_rows(size: int, seed: int = 5) -> bytes:
+    """Seeded results-table text: a header and rows of numbers that repeat
+    in structure but not in value, like a benchmark CSV."""
+    rng = np.random.default_rng(seed)
+    rows = ["input_size,output_size,time_taken,speed,ratio"]
+    while sum(len(r) + 1 for r in rows) < size:
+        n = int(rng.choice([500, 1000, 5000, 10000, 50000]))
+        out = int(n / rng.uniform(1.5, 3.5))
+        t = rng.uniform(1e-5, 1e-2)
+        rows.append(f"{n},{out},{t:.6f},{n / t / 1e6:.3f},{n / out:.4f}")
+    return "\n".join(rows).encode()[:size]
+
+
 CASES = {
     "text_12k": corpus.text(12_000),
     "lowent_8k": corpus.low_entropy(8_000),
     "records_10k": corpus.structured_binary(10_000),
     "random_4k": corpus.random_bytes(4_000),
     "abc_periodic": (b"abcabcabc" * 400)[:3_500],
-    "csv_head": open(
-        "/root/reference/Test_results/compression_results.csv", "rb"
-    ).read()[:9_000],
+    "csv_rows": _csv_rows(9_000),
 }
 
 

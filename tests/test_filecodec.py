@@ -83,7 +83,7 @@ def test_oversized_compressed_block_falls_back(tmp_path):
     """A VALID stream whose per-block compressed span exceeds
     MAX_COMPRESSED_BLOCK_SIZE (e.g. all 1-byte literals: 2 comp bytes per
     output byte = 131072 B per 64 KiB block) must decode through
-    decompress_file, not raise (ADVICE r4 #1): it routes to the in-memory
+    decompress_file, not raise: it routes to the in-memory
     windowed path."""
     from snappytpu.format.varint import encode_varint
 

@@ -109,17 +109,18 @@ def test_truncations_never_crash():
             assert m[0] == n[0] or m[0] == "reject"
 
 
-# ---- Pallas decode VM differential (see kernels/decode_vm.py) ----
+# ---- block decoder differential (kernels/decode.decode_blocks: the CUDA
+# kernel on a GPU, the plain-JAX decoder on the CPU) ----
 
 
 def _vm_result(ops: np.ndarray, out_len: int):
-    from snappytpu.kernels.decode_vm import decode_blocks_vm
+    from snappytpu.kernels.decode import decode_blocks
 
     if out_len > C.MAX_BLOCK_SIZE or ops.size > C.MAX_COMPRESSED_BLOCK_SIZE:
         return None
     padded = np.zeros((1, C.MAX_COMPRESSED_BLOCK_SIZE), np.uint8)
     padded[0, : ops.size] = ops
-    out, ok = decode_blocks_vm(
+    out, ok = decode_blocks(
         padded, np.array([ops.size], np.int32), np.array([out_len], np.int32)
     )
     if not bool(np.asarray(ok)[0]):
@@ -129,8 +130,8 @@ def _vm_result(ops: np.ndarray, out_len: int):
 
 @pytest.mark.parametrize("seed", range(12))
 def test_vm_mutation_differential(seed):
-    """Single-block valid stream, one random byte mutated: the VM and the
-    model decoder must both reject or agree byte-for-byte."""
+    """Single-block valid stream, one random byte mutated: the block decoder
+    and the model decoder must both reject or agree byte-for-byte."""
     rng = np.random.default_rng(1000 + seed)
     data = corpus.mixed(int(rng.integers(500, 60000)), seed=seed)
     comp = model_compress(data)
@@ -201,15 +202,15 @@ def test_vm_mutation_differential_device_streams(seed):
         assert v[1] == m[1]
 
 
-# ---- windowed stream decoder differential (decode_vm2.decode_stream_vm +
+# ---- windowed stream decoder differential (kernels/decode.decode_stream +
 # framing.split_ops_windowed — the sliding-context path for streams whose
 # ops straddle 64 KiB output boundaries, snappy_decompression.c:154-161) ----
 
 
 def _windowed_result(ops: np.ndarray, out_len: int):
     """Full windowed device pipeline verdict: host op-walk split + the
-    sliding-window kernel; reject = split refuses OR any chunk not-ok."""
-    from snappytpu.kernels.decode_vm2 import decode_stream_vm
+    sliding-window decoder; reject = split refuses OR any chunk not-ok."""
+    from snappytpu.kernels.decode import decode_stream
 
     if out_len > 1 << 21 or ops.size > 1 << 21:
         return None  # resource guard for the test harness
@@ -218,7 +219,7 @@ def _windowed_result(ops: np.ndarray, out_len: int):
     except (CorruptError, ValueError):
         return ("reject", None)
     padded, comp_lens = framing.pad_chunks(chunks)
-    out, ok = decode_stream_vm(
+    out, ok = decode_stream(
         padded, comp_lens, np.asarray(out_lens, np.int32), ctx_lens,
         np.zeros(C.MAX_BLOCK_SIZE, np.uint8),
     )
@@ -290,62 +291,42 @@ def test_windowed_truncation_differential(seed):
             assert w[1] == m[1]
 
 
-def _tape_result(ops: np.ndarray, out_len: int):
-    from snappytpu.kernels.decode_tape import decode_blocks_tape
+def _api_result(stream: bytes):
+    """The host-resident route: api.decompress (native split into rows, the
+    block decoder, native compaction) as a verdict."""
+    from snappytpu import api
 
-    if not cpu.available:
-        return None
-    if out_len > C.MAX_BLOCK_SIZE or ops.size > C.MAX_COMPRESSED_BLOCK_SIZE:
-        return None
-    padded = np.zeros((1, C.MAX_COMPRESSED_BLOCK_SIZE), np.uint8)
-    padded[0, : ops.size] = ops
-    out, ok = decode_blocks_tape(
-        padded, np.array([ops.size], np.int32), np.array([out_len], np.int32)
-    )
-    if not bool(ok[0]):
-        return ("reject", None)
-    return ("ok", out[0, :out_len].tobytes())
-
-
-@pytest.mark.parametrize("seed", range(8))
-def test_tape_mutation_differential(seed):
-    """The host-tape decoder (the file decompressor's production route,
-    stream/filecodec.py) under the same mutation differential: the tape
-    builder's accept set and bytes must match the model decoder exactly."""
-    rng = np.random.default_rng(7000 + seed)
-    data = corpus.mixed(int(rng.integers(500, 60000)), seed=seed)
-    comp = model_compress(data)
-    arr = np.frombuffer(comp, np.uint8).copy()
-    out_len, start = framing.read_preamble(arr)
-    idx = int(rng.integers(start, arr.size))
-    arr[idx] ^= int(rng.integers(1, 256))
-    ops = arr[start:]
     try:
-        m = ("ok", decode_ops(ops, out_len).tobytes())
-    except (CorruptError, ValueError):
-        m = ("reject", None)
-    t = _tape_result(ops, out_len)
-    if t is None:
-        return
-    assert t[0] == m[0], f"tape {t[0]} vs model {m[0]}"
-    if t[0] == "ok":
-        assert t[1] == m[1]
+        return ("ok", api.decompress(stream))
+    except ValueError:  # CorruptError, NativeError or a bad preamble
+        return ("reject", None)
 
 
 @pytest.mark.parametrize("seed", range(8))
-def test_tape_garbage_ops(seed):
-    """Random op bytes through the tape builder: never ok unless the model
-    decoder also accepts (then byte-identical)."""
+def test_api_mutation_differential(seed):
+    """Mutated multi-block streams through api.decompress must get the same
+    verdict and bytes as the native decoder."""
+    if not cpu.available:
+        pytest.skip("native runtime unavailable")
+    rng = np.random.default_rng(7000 + seed)
+    data = corpus.mixed(int(rng.integers(500, 150_000)), seed=seed)
+    arr = np.frombuffer(cpu.compress(data), np.uint8).copy()
+    _, start = framing.read_preamble(arr)
+    for _ in range(int(rng.integers(1, 4))):
+        arr[int(rng.integers(start, arr.size))] ^= int(rng.integers(1, 256))
+    stream = arr.tobytes()
+    assert _api_result(stream) == _native_result(stream)
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_api_garbage_differential(seed):
+    """Random op bytes behind a valid preamble: api.decompress and the native
+    decoder reject together, or agree byte-for-byte."""
+    if not cpu.available:
+        pytest.skip("native runtime unavailable")
+    from snappytpu.format.varint import encode_varint
+
     rng = np.random.default_rng(8000 + seed)
     ops = rng.integers(0, 256, int(rng.integers(2, 2000)), dtype=np.uint8)
-    out_len = int(rng.integers(1, 65536))
-    try:
-        m = ("ok", decode_ops(ops, out_len).tobytes())
-    except (CorruptError, ValueError):
-        m = ("reject", None)
-    t = _tape_result(ops, out_len)
-    if t is None:
-        return
-    assert t[0] == m[0]
-    if t[0] == "ok":
-        assert t[1] == m[1]
+    stream = encode_varint(int(rng.integers(1, 65536))) + ops.tobytes()
+    assert _api_result(stream) == _native_result(stream)

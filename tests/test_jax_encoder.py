@@ -1,6 +1,6 @@
 """Device (JAX) encoder vs the numpy model: the compressed bytes must be
 IDENTICAL — the model is the executable spec, not an approximation.  Runs on
-CPU here; the same jitted function runs unchanged on TPU."""
+CPU here; the same jitted function runs unchanged on a GPU."""
 
 import numpy as np
 import pytest

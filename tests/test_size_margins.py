@@ -1,12 +1,11 @@
-"""Contract-margin visibility (VERDICT r4 demand #6).
+"""Contract-margin visibility.
 
 The dense profile's strict <=-reference size contract
 (test_reference_compat.py:93-107) is pass/fail per fixture; this test
 computes the per-fixture margin over the SAME fixture set in one pass and
 fails with the two thinnest margins in the message, so a change that spends
-the ~13-byte two_blocks_mixed margin is diagnosed — not just detected.  The
-committed history lives in Test_results_tpu/size_margins.csv
-(regenerated by tools/enc_sizes.py each round).
+the ~13-byte two_blocks_mixed margin is diagnosed — not just detected.
+tools/enc_sizes.py writes the same table to results/size_margins.csv.
 """
 
 from snappytpu import api

@@ -5,8 +5,8 @@ The reference decoder handles ANY valid Snappy stream with its sliding
 encoders (ours, the reference's, google/snappy's) never emit ops straddling
 64 KiB output boundaries, but the format allows them.  These tests build
 such streams by hand and drive them through api.decompress, which must take
-the decode_stream_vm path (NOT the host fallback) and still reject corrupt
-input deterministically.
+the windowed decoder (kernels/decode.decode_stream, NOT the host fallback)
+and still reject corrupt input deterministically.
 """
 
 import numpy as np
@@ -105,11 +105,11 @@ def test_windowed_split_geometry():
 
 def test_windowed_rejects_forward_reference():
     # a copy whose dist exceeds ALL prior output (incl. context) must be
-    # flagged by the stream kernel, not silently decoded
+    # flagged by the windowed decoder, not silently decoded
     payload = bytes(range(256)) * 300          # 76800 bytes -> 2 chunks
     ops = _lit(payload[:50000]) + _lit(payload[50000:]) + _copy4(8, 60000 + 16801)
     stream = encode_varint(len(payload) + 8) + ops
-    # the stream kernel flags it; the authoritative host fallback re-checks
+    # the windowed decoder flags it; the authoritative host fallback re-checks
     # and rejects too (CorruptError from the model path, NativeError —
     # a ValueError — from the native path)
     with pytest.raises(ValueError):
@@ -129,7 +129,7 @@ def test_giant_literal_falls_back_to_host():
 
 def test_windowed_api_batched_context_carry(monkeypatch):
     """api._decompress_windowed stages chunks in bounded batches, carrying
-    the 64 KiB context tail between decode_stream_vm calls (ADVICE r3 #2):
+    the 64 KiB context tail between decode_stream calls:
     force 2-chunk batches and decode an unaligned stream whose copies
     reach across the batch seams."""
     import numpy as np
@@ -160,11 +160,10 @@ def test_windowed_api_batched_context_carry(monkeypatch):
 
 def test_far_reach_copy_falls_back_to_sequential(monkeypatch):
     """A valid stream whose copy reaches back MORE than 64 KiB past its
-    chunk start exceeds the windowed kernel's context window; api.decompress
+    chunk start exceeds the windowed decoder's context window; api.decompress
     must route it to the sequential authority (native or model decoder) and
     still produce exact bytes (the reference accepts any in-range offset
-    because its whole output is resident, snappy_decompression.c:323-327;
-    VERDICT r3 missing #3)."""
+    because its whole output is resident, snappy_decompression.c:323-327)."""
     import numpy as np
 
     from snappytpu import api
@@ -182,7 +181,7 @@ def test_far_reach_copy_falls_back_to_sequential(monkeypatch):
         ops += seg.tobytes()
     # COPY2 len 64 dist 61000: lands at output 131073 (chunk 3 start
     # 131072 + 1), reaching back to 70073 — 61000 > 1 + 65536 of window
-    # context, so the windowed kernel cannot prove it and must fall back
+    # context, so the windowed decoder cannot prove it and must fall back
     dist = 61_000
     ops += bytes([((64 - 1) << 2) | 2, dist & 0xFF, dist >> 8])
     out_len = 131_073 + 64

@@ -1,6 +1,6 @@
 """Fast-encoder ablation timing: each variant is ONE jit over identical
-resident inputs, so the ~23 ms dispatch overhead (PROFILE.md r5) cancels in
-the deltas.  Variants produce wire-INVALID streams (measurement only)."""
+resident inputs, so the per-call dispatch overhead cancels in the
+deltas.  Variants produce wire-INVALID streams (measurement only)."""
 import os, sys, time
 import numpy as np
 import jax, jax.numpy as jnp

@@ -1,4 +1,4 @@
-"""Focused full-encoder timing A/B on the TPU: stages the bench corpus
+"""Focused full-encoder timing A/B on the device: stages the bench corpus
 once, then times encode_block_core for each (profile, nsec) configuration
 in one process (honest queued-dispatch protocol, scalar fetches)."""
 import os, sys, time

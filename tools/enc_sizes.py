@@ -48,11 +48,11 @@ for name, data in sorted(FIX.items()):
     print(f"{ok} {name:28s} ref {rb:8d}  dense {dn:8d} ({rb-dn:+6d})  fast {fa:8d} ({rb-fa:+6d})", flush=True)
 print("STRICT-CONTRACT:", "PASS" if bad == 0 else f"{bad} FAIL")
 
-# committed, diffable margin history (VERDICT r4 demand #6): regenerated each
-# round so a thinning contract margin shows up in the diff, not just in a
-# suite failure after the margin is gone
+# margin table, regenerated on each run so a thinning contract margin
+# shows up before the suite fails
 out_csv = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                       "Test_results_tpu", "size_margins.csv")
+                       "results", "size_margins.csv")
+os.makedirs(os.path.dirname(out_csv), exist_ok=True)
 with open(out_csv, "w") as f:
     f.write("fixture,input_size,ref_best,dense,fast,dense_margin,fast_margin\n")
     for r in rows:

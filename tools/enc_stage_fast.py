@@ -1,4 +1,4 @@
-"""Fast-profile encoder stage breakdown on the TPU, plus _emit sub-stage
+"""Fast-profile encoder stage breakdown on the device, plus _emit sub-stage
 cuts (slots-only / sort-only) to locate the emission cost.  Honest queued
 protocol (tools/stage_profile.py)."""
 import os, sys, time

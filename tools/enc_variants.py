@@ -1,7 +1,7 @@
 """Dense-profile tier-B/tier-A configuration matrix vs the strict-size
 contract (ours <= min(reference -c, -b) per fixture) — the offline search
 for a cheaper sort that keeps every margin.  CPU-only; speed of surviving
-configs is measured separately on the TPU (tools/enc_profile.py).
+configs is measured separately on the GPU (tools/enc_profile.py).
 
 Each config is threaded through encode_block_core's keyword knobs (real
 function args, so every variant traces separately)."""

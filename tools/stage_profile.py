@@ -1,6 +1,6 @@
-"""Honest stage profile on the TPU: queued dispatches over FRESH inputs per
-rep (no runtime result reuse), one aggregated scalar fetch, overhead
-amortized over NQ queued calls."""
+"""Encoder stage and decoder profile on the device: queued dispatches over
+FRESH inputs per rep (no runtime result reuse), one aggregated scalar
+fetch, overhead amortized over NQ queued calls."""
 import os, sys, time
 import numpy as np
 import jax, jax.numpy as jnp
@@ -11,8 +11,7 @@ from snappytpu.bench import corpus
 from snappytpu.format import constants as C
 from snappytpu.stream import framing
 from snappytpu.kernels import encode_v2 as E
-from snappytpu.kernels import decode_vm as V
-from snappytpu.kernels.concat import concat_rows
+from snappytpu.kernels.decode import decode_blocks
 
 t0 = time.time()
 def log(m): print(f"[{time.time()-t0:6.1f}s] {m}", flush=True)
@@ -73,5 +72,5 @@ for (b, l) in batches:
     comp_np, totals_np = np.asarray(comp), np.asarray(totals)
     dec_sets.append((jax.device_put(jnp.asarray(comp_np)),
                      jax.device_put(jnp.asarray(totals_np)), l))
-prof("decode vm (K=4)", V.decode_blocks_vm, dec_sets)
+prof("decode", decode_blocks, dec_sets)
 log("DONE")
